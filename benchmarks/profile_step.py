@@ -24,17 +24,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
 def main():
+    from noahmp_jax.utils import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("n", nargs="?", type=int, default=65536)
     ap.add_argument("--steps", type=int, default=10)
@@ -43,7 +40,7 @@ def main():
     args = ap.parse_args()
 
     from __graft_entry__ import _build
-    from noahmp_tpu.physics.sflx import column_step
+    from noahmp_jax.physics.sflx import column_step
 
     n = args.n
     params, opts, static, forcing, state = _build(n)
@@ -89,18 +86,13 @@ def main():
               f"{sum(sizes)*4/max(n,1):.0f} B/point)")
         return
 
-    def sync(st):
-        leaf = jax.tree_util.tree_leaves(st)[0]
-        return float(np.asarray(leaf.reshape(-1)[0]))
-
-    state = jitted(params, static, forcing, state)
-    sync(state)
+    state = jax.block_until_ready(jitted(params, static, forcing, state))
 
     def run(nsteps, st):
         t0 = time.perf_counter()
         for _ in range(nsteps):
             st = jitted(params, static, forcing, st)
-        sync(st)
+        jax.block_until_ready(st)
         return time.perf_counter() - t0, st
 
     dt, state = run(3, state)  # warm donation steady-state
@@ -118,7 +110,8 @@ def main():
         dt, state = run(args.steps, state)
 
     print(json.dumps({
-        "n": n, "backend": jax.devices()[0].platform,
+        "n": n, "device": {"platform": jax.devices()[0].platform,
+                           "kind": jax.devices()[0].device_kind},
         "ms_per_step": round(1e3 * dt / args.steps, 2),
         "point_steps_per_s": round(n * args.steps / dt, 1)}))
 

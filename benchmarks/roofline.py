@@ -1,52 +1,44 @@
-"""Roofline analysis of the XLA column step on the real TPU.
+"""Roofline of the XLA column step on the device it runs on.
 
-Settles PERF.md lever 3 ("fused Pallas column kernel") with data:
-pulls the TPU compiler's own cost model for the compiled step
-(flops, transcendentals, bytes accessed), measures the achieved
-step rate, and reports the achieved fraction of the HBM-bandwidth
-and VPU-compute rooflines.  Optionally captures a jax.profiler
-trace (--trace) if the backend supports collection.
+Pulls XLA's own cost model for the compiled step (flops,
+transcendentals, bytes accessed) and its memory analysis, measures the
+step rate (bench.time_step) and the bandwidth of a large elementwise
+copy timed in the same run (bench.copy_bandwidth), and reports the
+step's achieved bandwidth as a share of that copy.  No peak is taken
+from a table.  Optionally captures a jax.profiler trace (--trace DIR).
 
-Usage: python benchmarks/roofline.py [n] [--trace]
-Writes ROOFLINE_r03.json at the repo root.
+Usage: python benchmarks/roofline.py [n] [--trace DIR]
+Prints one JSON document.
 """
 
 import json
 import os
 import sys
-import time
 
 import jax
-import jax.numpy as jnp
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
-jax.config.update("jax_compilation_cache_dir", os.path.join(_REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-# TPU v5e (v5 lite) single-core peaks, from the public spec sheet:
-# 394 bf16 MXU TFLOP/s is irrelevant here (no matmuls); the column
-# physics is pure VPU elementwise work.  VPU: (8 sublanes x 128
-# lanes) x 4 SIMD units x 940 MHz ~= 3.85 Top/s f32 (x2 with FMA).
-# HBM: 819 GB/s.
-V5E_HBM_GBS = 819.0
-V5E_VPU_TOPS = 3.85e12          # non-FMA vector op/s
-V5E_VPU_FMA_FLOPS = 7.7e12      # counting FMA as 2 flops
 
 
 def main():
-    n = 65536
-    do_trace = "--trace" in sys.argv
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    if args:
-        n = int(args[0])
-
+    from noahmp_jax.utils import enable_compile_cache
+    import bench
     from __graft_entry__ import _build
-    from noahmp_tpu.physics.sflx import column_step
+    from noahmp_jax.physics.sflx import column_step
+    import jax.numpy as jnp
+
+    enable_compile_cache()
+    argv = sys.argv[1:]
+    trace_dir = None
+    if "--trace" in argv:
+        trace_dir = argv[argv.index("--trace") + 1]
+        argv.remove(trace_dir)
+    args = [a for a in argv if not a.startswith("--")]
+    n = int(args[0]) if args else 65536
 
     params, opts, static, forcing, state = _build(n)
-    static, forcing = jax.device_put((static, forcing))
+    params, static, forcing = jax.device_put((params, static, forcing))
 
     def fn(params, static, forcing, state):
         col = lambda p, st, f, s: column_step(  # noqa: E731
@@ -54,93 +46,45 @@ def main():
         return jax.vmap(col, in_axes=(None, 0, 0, 0))(
             params, static, forcing, state)[0]
 
-    t0 = time.time()
-    lowered = jax.jit(fn, donate_argnums=(3,)).lower(
-        params, static, forcing, state)
-    compiled = lowered.compile()
-    print(f"[{time.time()-t0:.1f}s] compiled", flush=True)
-
+    compiled = jax.jit(fn, donate_argnums=(3,)).lower(
+        params, static, forcing, state).compile()
     cost = compiled.cost_analysis()
     if isinstance(cost, list):  # older jax returns [dict]
         cost = cost[0]
-    mem = {}
-    try:
-        ma = compiled.memory_analysis()
-        mem = {
-            "output_bytes": getattr(ma, "output_size_in_bytes", None),
-            "temp_bytes": getattr(ma, "temp_size_in_bytes", None),
-            "argument_bytes": getattr(ma, "argument_size_in_bytes", None),
-            "peak_bytes": getattr(ma, "peak_memory_in_bytes", None),
-        }
-    except Exception as e:  # pragma: no cover
-        mem = {"error": str(e)}
+    ma = compiled.memory_analysis()
+    mem = {k: getattr(ma, k, None) for k in (
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "temp_size_in_bytes")}
 
-    flops = cost.get("flops", float("nan"))
-    transcend = cost.get("transcendentals", float("nan"))
-    bytes_acc = cost.get("bytes accessed", float("nan"))
-
-    # measured rate (same protocol as bench.py)
-    def sync(s):
-        return float(jnp.asarray(s.tg[0]))
-
-    state = compiled(params, static, forcing, state)
-    state = compiled(params, static, forcing, state)
-    sync(state)
-    nsteps = 20
-    t1 = time.perf_counter()
-    for _ in range(nsteps):
-        state = compiled(params, static, forcing, state)
-    sync(state)
-    dt = (time.perf_counter() - t1) / nsteps
-    rate = n / dt
-
-    steps_per_sec = 1.0 / dt
-    achieved_flops = flops * steps_per_sec
-    achieved_bw = bytes_acc * steps_per_sec
-    # transcendentals are VPU-serial multi-op sequences; fold them in
-    # at ~8 vector ops each (exp/log polynomial on TPU) for the
-    # compute-roofline estimate.
-    vpu_ops = flops + 8.0 * transcend
-    achieved_vpu = vpu_ops * steps_per_sec
-
+    r = bench.time_step(n)
+    bw = bench.copy_bandwidth()
+    sec = r["ms_per_step"] / 1e3
+    bytes_acc = cost["bytes accessed"]
     out = {
         "n": n,
-        "ms_per_step": dt * 1e3,
-        "point_steps_per_sec": rate,
+        "ms_per_step": r["ms_per_step"],
+        "point_steps_per_sec": r["point_steps_per_sec"],
         "xla_cost_model": {
-            "flops_per_step": flops,
-            "transcendentals_per_step": transcend,
-            "bytes_accessed_per_step": bytes_acc,
-            "flops_per_point": flops / n,
-            "transcendentals_per_point": transcend / n,
+            "flops_per_point": cost.get("flops", float("nan")) / n,
+            "transcendentals_per_point":
+                cost.get("transcendentals", float("nan")) / n,
             "bytes_per_point": bytes_acc / n,
         },
         "memory_analysis": mem,
-        "roofline": {
-            "achieved_GBps": achieved_bw / 1e9,
-            "hbm_peak_GBps": V5E_HBM_GBS,
-            "hbm_fraction": achieved_bw / 1e9 / V5E_HBM_GBS,
-            "achieved_GFLOPs": achieved_flops / 1e9,
-            "achieved_vpu_ops_per_sec": achieved_vpu,
-            "vpu_peak_ops": V5E_VPU_TOPS,
-            "vpu_fraction_nonfma": achieved_vpu / V5E_VPU_TOPS,
-            "vpu_fraction_fma": achieved_vpu / V5E_VPU_FMA_FLOPS,
-        },
+        "achieved_GBps": bytes_acc / sec / 1e9,
+        "copy_GBps": bw / 1e9,
+        "copy_share": bytes_acc / sec / bw,
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind},
     }
     print(json.dumps(out, indent=2), flush=True)
-    with open(os.path.join(_REPO, "ROOFLINE_r03.json"), "w") as f:
-        json.dump(out, f, indent=2)
 
-    if do_trace:
-        tdir = os.path.join(_REPO, ".profile")
-        try:
-            with jax.profiler.trace(tdir):
-                for _ in range(5):
-                    state = compiled(params, static, forcing, state)
-                sync(state)
-            print(f"trace written to {tdir}", flush=True)
-        except Exception as e:
-            print(f"trace collection failed: {e!r}", flush=True)
+    if trace_dir:
+        with jax.profiler.trace(trace_dir):
+            for _ in range(5):
+                state = compiled(params, static, forcing, state)
+            jax.block_until_ready(state)
+        print(f"trace written to {trace_dir}", flush=True)
 
 
 if __name__ == "__main__":

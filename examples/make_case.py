@@ -120,7 +120,7 @@ def conus_domain(n, rng):
 
 
 def conus(n, seed=0, days=1, outdir=None, start=None, fmt="nc"):
-    from noahmp_tpu.driver.io import save_arrays
+    from noahmp_jax.driver.io import save_arrays
 
     rng = np.random.default_rng(seed)
     outdir = outdir or os.path.join(HERE, "conus")
@@ -150,10 +150,11 @@ def conus(n, seed=0, days=1, outdir=None, start=None, fmt="nc"):
     })
 
     # hourly forcing with latitudinal + diurnal structure and a moving
-    # precipitation band; one extra hour for interpolation
+    # precipitation band; files run two hours past the end, so a run
+    # resumed from the final restart can go on for 8 steps
     start = start or datetime.datetime(2000, 7, 1)
     lon_deg = np.rad2deg(dom["lon"])
-    for h in range(days * 24 + 2):
+    for h in range(days * 24 + 3):
         when = start + datetime.timedelta(hours=h)
         tod = (h + lon_deg / 15.0) % 24.0   # local solar time-ish
         day = np.maximum(0.0, np.sin((tod - 6.0) / 12.0 * np.pi))
@@ -219,7 +220,7 @@ def conus(n, seed=0, days=1, outdir=None, start=None, fmt="nc"):
 """)
     print(f"wrote CONUS-flavored case: n={n}, {days} day(s), "
           f"fmt={fmt} under {outdir}\n  run: python -m "
-          f"noahmp_tpu.driver.cli {nml}")
+          f"noahmp_jax.driver.cli {nml}")
     return outdir
 
 

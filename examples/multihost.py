@@ -1,18 +1,20 @@
 """Multi-host SPMD launcher for the offline driver.
 
 The reference is a serial single-column model; this is the scale-out
-path it never had.  One process per host, each seeing its local TPU
-chips; JAX's distributed runtime stitches them into one global mesh and
-the land-point axis is sharded across every chip in the job
+path it never had.  One JAX process per host, each seeing all of that
+host's GPUs (a second process on the same GPU fails for want of memory:
+JAX reserves most of a card when it first uses it).  JAX's distributed
+runtime stitches the hosts into one global mesh and the land-point
+axis is sharded across every GPU in the job
 (SURVEY.md section 2.6: pure data parallelism, diagnostics-only
 collectives).  Restarts go through the async orbax checkpointer, which
 writes sharded arrays cooperatively from all hosts.
 
-Single host (uses all local devices):
+Single host (uses all local GPUs):
 
     python examples/multihost.py examples/case.nml
 
-Multi-host (run on every host, e.g. via gcloud compute tpus ssh --worker=all):
+Multi-host (run once on every host, with that host's index as $WID):
 
     python examples/multihost.py examples/case.nml \
         --coordinator=10.0.0.2:8476 --num-processes=4 --process-id=$WID
@@ -42,15 +44,15 @@ def main(argv=None):
                     help="synthetic domain size when no domain file")
     args = ap.parse_args(argv)
 
-    from noahmp_tpu.dist.mesh import init_distributed, make_mesh
+    from noahmp_jax.dist.mesh import init_distributed, make_mesh
     init_distributed(args.coordinator, args.num_processes,
                      args.process_id)
 
     import jax
-    from noahmp_tpu.driver.config import Config
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.driver.config import Config
+    from noahmp_jax.driver.run import run_offline
 
-    mesh = make_mesh()  # 1-D over every chip in the job
+    mesh = make_mesh()  # 1-D over every device in the job
     ndev = len(jax.devices())
     if jax.process_index() == 0:
         print(f"mesh: {ndev} devices x {jax.process_count()} processes")

@@ -1,5 +1,5 @@
 // Native serial reference column physics. See noahmp_ref.hpp.
-// Structure mirrors noahmp_tpu/physics/*; each section notes the
+// Structure mirrors noahmp_jax/physics/*; each section notes the
 // corresponding JAX module (which cites the upstream Fortran lines).
 
 #include "noahmp_ref.hpp"

@@ -3,10 +3,10 @@
 // Purpose: an independent C++ oracle with *natural* control flow (true
 // early exits, real branches, in-place layer shifting) for validating
 // the masked/fixed-shape JAX implementation, and a fast CPU fallback.
-// Physics follows the same equations as noahmp_tpu/physics/* (each of
+// Physics follows the same equations as noahmp_jax/physics/* (each of
 // which cites the upstream Fortran file:line it models).
 //
-// Single precision throughout to match the f32 TPU path.
+// Single precision throughout to match the f32 batched model.
 #pragma once
 
 #include <cstdint>
@@ -58,7 +58,7 @@ struct ColForcing {
   float co2air, o2air, foln, julian, yearlen;
 };
 
-// Prognostic state; layout mirrors noahmp_tpu.state.State:
+// Prognostic state; layout mirrors noahmp_jax.state.State:
 // snow/soil arrays are bottom-aligned, slot i = python index i
 // (snow slots 0..2 with the bottom at 2; soil slots 3..6).
 struct ColState {

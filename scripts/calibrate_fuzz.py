@@ -21,11 +21,11 @@ os.environ["JAX_PLATFORMS"] = "cpu"  # oracle comparison is CPU work
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from noahmp_tpu.params import load_params  # noqa: E402
-from noahmp_tpu.options import Options  # noqa: E402
-from noahmp_tpu.state import init_state, init_static, Forcing, State  # noqa: E402
-from noahmp_tpu.driver.step import make_step  # noqa: E402
-from noahmp_tpu import native  # noqa: E402
+from noahmp_jax.params import load_params  # noqa: E402
+from noahmp_jax.options import Options  # noqa: E402
+from noahmp_jax.state import init_state, init_static, Forcing, State  # noqa: E402
+from noahmp_jax.driver.step import make_step  # noqa: E402
+from noahmp_jax import native  # noqa: E402
 
 # 8 heterogeneous columns: grass, forest, barren, crop, shrub,
 # dry crop/pasture (USGS 2), urban (USGS 1), wooded tundra

@@ -12,10 +12,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from noahmp_tpu.params import load_params
-from noahmp_tpu.options import Options
-from noahmp_tpu.state import init_state, init_static, Forcing
-from noahmp_tpu.driver.step import make_step
+from noahmp_jax.params import load_params
+from noahmp_jax.options import Options
+from noahmp_jax.state import init_state, init_static, Forcing
+from noahmp_jax.driver.step import make_step
 
 n = 8
 params = load_params("USGS", "STAS")

@@ -1,7 +1,7 @@
 """Test harness configuration.
 
 Runs the whole suite on an 8-device virtual CPU mesh so sharding tests
-exercise the same SPMD code paths as a real TPU slice.  Must run before
+exercise the same SPMD code paths as a multi-GPU mesh.  Must run before
 any test imports initialize a JAX backend.
 """
 
@@ -17,11 +17,9 @@ jax.config.update("jax_platforms", "cpu")
 
 # Persistent compilation cache: the suite compiles ~15 distinct option
 # combinations; caching makes re-runs start in seconds.
-_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from noahmp_jax.utils import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import pytest  # noqa: E402
 

@@ -24,7 +24,7 @@ def case_dir(tmp_path_factory):
 
 
 def test_frame_fields_match_provider_contract():
-    from noahmp_tpu.driver import io as io_mod
+    from noahmp_jax.driver import io as io_mod
 
     assert set(io_mod.FRAME_FIELDS) == \
         set(io_mod.FileForcing.INTERP) | set(io_mod.FileForcing.HOLD)
@@ -34,8 +34,8 @@ def test_frame_fields_match_provider_contract():
 
 def test_compact_expander_matches_exact_stack(case_dir):
     import jax
-    from noahmp_tpu.driver import io as io_mod
-    from noahmp_tpu.driver.config import Config
+    from noahmp_jax.driver import io as io_mod
+    from noahmp_jax.driver.config import Config
 
     cfg = Config.from_namelist(os.path.join(case_dir, "case.nml"))
     static = io_mod.load_domain(cfg.constfile)
@@ -63,8 +63,8 @@ def test_compact_expander_matches_exact_stack(case_dir):
 def test_compact_chunk_run_matches_exact(case_dir):
     """Full chunked driver run in compact mode tracks the exact mode
     closely (state-level; interp ulps only)."""
-    from noahmp_tpu.driver.config import Config
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.driver.config import Config
+    from noahmp_jax.driver.run import run_offline
 
     def cfg_for(tag):
         cfg = Config.from_namelist(os.path.join(case_dir, "case.nml"))

@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from noahmp_tpu.params import load_params
-from noahmp_tpu.options import Options
-from noahmp_tpu.state import init_state, init_static, Forcing
-from noahmp_tpu.driver.step import make_step
+from noahmp_jax.params import load_params
+from noahmp_jax.options import Options
+from noahmp_jax.state import init_state, init_static, Forcing
+from noahmp_jax.driver.step import make_step
 
 SW_TOL = 0.01      # W/m2 (reference abort threshold)
 ENG_TOL = 0.02     # W/m2 (reference threshold 0.01 is in f32 round-off
@@ -190,7 +190,7 @@ def test_chen97_fixed_carry(params):
     """opt_sfc=2 with the dimensionally-consistent Chen97 carry
     (tuning.CHEN97_FIXED_CARRY): budgets still close, results differ
     from the quirk-compatible default."""
-    from noahmp_tpu import tuning
+    from noahmp_jax import tuning
 
     n = 4
     opts = Options(sfc=2)
@@ -219,8 +219,8 @@ def test_chen97_fh2_pinned_zero(monkeypatch):
     (PARITY.md deviation #6), making EHB2 exactly
     USTAR*KARMAN/log((2+Z0H)/Z0H) with no stability-correction term.
     Pin it by fixing sfcdif2's ustar and checking that identity."""
-    from noahmp_tpu.physics import sfc, flux as flux_mod
-    from noahmp_tpu.constants import KARMAN
+    from noahmp_jax.physics import sfc, flux as flux_mod
+    from noahmp_jax.constants import KARMAN
 
     params = load_params("USGS", "STAS", to_device=False)
     opts = Options(sfc=2)
@@ -246,3 +246,70 @@ def test_chen97_fh2_pinned_zero(monkeypatch):
 
     expect = USTAR * KARMAN / np.log((2.0 + z0m) / z0m)
     np.testing.assert_allclose(np.asarray(out.ehb2), expect, rtol=1e-6)
+
+
+# forcing regimes over one mixed-class block: forest, grass, urban(1),
+# water(16, ist=2), barren(19), ice(24), cropland, shrub
+MIXED_LUTYP = [7, 10, 1, 16, 19, 24, 2, 8]
+MIXED_SLTYP = [6, 4, 9, 14, 16, 12, 3, 7]
+REGIMES = {
+    # day, warm, light rain
+    "warm_day": dict(sfctmp=293.0, q2=0.007, soldn=500.0, lwdn=330.0,
+                     prcp=0.001, cosz=0.6, state={}),
+    # night, subfreezing, snowing onto an existing shallow pack
+    "cold_snow": dict(sfctmp=265.0, q2=0.002, soldn=0.0, lwdn=220.0,
+                      prcp=0.002, cosz=-0.2,
+                      state=dict(tg=268.0, tv=266.0, sneqv=25.0,
+                                 snowh=0.12, stc_soil=271.0)),
+    # frozen ground, clear morning, no precip
+    "frozen_morning": dict(sfctmp=270.0, q2=0.003, soldn=300.0,
+                           lwdn=250.0, prcp=0.0, cosz=0.35,
+                           state=dict(tg=269.0, tv=269.0,
+                                      stc_soil=270.0)),
+    # hot dry conditions (stomata/canres stress branch)
+    "hot_dry": dict(sfctmp=310.0, q2=0.004, soldn=900.0, lwdn=400.0,
+                    prcp=0.0, cosz=0.9,
+                    state=dict(tg=312.0, tv=309.0, swc=0.08,
+                               smc=0.08)),
+}
+
+
+@pytest.fixture(scope="module")
+def mixed_block(params):
+    """The mixed-class block and one jitted step that all regimes share
+    (same shapes and options: one compile)."""
+    n = len(MIXED_LUTYP)
+    static = init_static(n, lutyp=7, sltyp=6)._replace(
+        lutyp=np.array(MIXED_LUTYP, np.int32),
+        sltyp=np.array(MIXED_SLTYP, np.int32),
+        ist=np.array([1, 1, 1, 2, 1, 1, 1, 1], np.int32),
+        ice=np.array([0, 0, 0, 0, 0, 1, 0, 0], np.int32))
+    return static, make_step(params, Options(), dt=900.0, donate=False)
+
+
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+def test_mixed_block_regime_budgets(mixed_block, regime):
+    """Snow, frozen soil, hot dry stress on a block holding the special
+    land-use classes (urban/water/barren/ice): the jitted step closes
+    the shortwave, energy (land points) and water budgets."""
+    static, step = mixed_block
+    n = len(MIXED_LUTYP)
+    r = REGIMES[regime]
+    skw = dict(r["state"])
+    stc_soil = skw.pop("stc_soil", None)
+    state = init_state(n, **skw)
+    if stc_soil is not None:
+        stc = np.asarray(state.stc).copy()
+        stc[:, 3:] = stc_soil
+        state = state._replace(stc=stc)
+    forcing = mkforcing(n, sfctmp=r["sfctmp"], q2=r["q2"],
+                        soldn=r["soldn"], lwdn=r["lwdn"],
+                        prcp=r["prcp"], cosz=r["cosz"])
+    for _ in range(4):
+        state, flux = step(static, forcing, state)
+    land = np.asarray(static.ist) == 1
+    assert np.max(np.abs(np.asarray(flux.errsw))) < SW_TOL
+    assert np.max(np.abs(np.asarray(flux.erreng))[land]) < ENG_TOL
+    assert np.max(np.abs(np.asarray(flux.errwat))) < 0.01
+    for name in ("tg", "tv", "stc", "swc", "sneqv"):
+        assert np.all(np.isfinite(np.asarray(getattr(state, name)))), name

@@ -9,10 +9,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from noahmp_tpu.driver.config import (Config, read_namelist,
+from noahmp_jax.driver.config import (Config, read_namelist,
                                       parse_frequency)
-from noahmp_tpu.driver import solar, io as io_mod
-from noahmp_tpu.state import init_state, init_static
+from noahmp_jax.driver import solar, io as io_mod
+from noahmp_jax.state import init_state, init_static
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASE = os.path.join(REPO, "examples", "case.nml")
@@ -49,7 +49,7 @@ def test_cadence_calendar_boundaries():
     """Calendar-correct cadence (reference contract run/case.nml:11,
     restart_frequency='1 month'): fires at true month starts, including
     across February and leap years, independent of host timezone."""
-    from noahmp_tpu.driver.config import parse_cadence, as_cadence
+    from noahmp_jax.driver.config import parse_cadence, as_cadence
 
     monthly = parse_cadence("1 month")
     assert monthly.due(datetime.datetime(2000, 2, 1, 0, 0, 0))
@@ -88,7 +88,7 @@ def test_cadence_tz_independent(monkeypatch):
     """Boundary decisions must not consult the host timezone (round-1
     used when.timestamp(), which does)."""
     import time as _time
-    from noahmp_tpu.driver.config import parse_cadence
+    from noahmp_jax.driver.config import parse_cadence
     old_tz = os.environ.get("TZ")
     try:
         for tz in ("UTC", "Asia/Kathmandu", "Pacific/Chatham"):
@@ -171,7 +171,7 @@ def test_nc_fallback_to_npz(tmp_path):
 def test_offline_run_short(tmp_path):
     """2-hour offline run with synthetic forcing writes output at the
     configured cadence."""
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.driver.run import run_offline
     cfg = Config.from_namelist(CASE)
     cfg.enddatetime = cfg.begdatetime + datetime.timedelta(hours=2)
     cfg.outdir = str(tmp_path / "out")
@@ -193,8 +193,8 @@ def test_offline_run_sharded_with_orbax_resume(tmp_path):
     restarts; a second invocation resumes from the checkpoint and lands
     on the same final state as an uninterrupted run."""
     import jax
-    from noahmp_tpu.dist.mesh import make_mesh
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.dist.mesh import make_mesh
+    from noahmp_jax.driver.run import run_offline
 
     mesh = make_mesh(jax.devices()[:8])
     base = dict(verbose=False, n_points=16)
@@ -234,7 +234,7 @@ def test_file_forcing_interpolation_and_prefetch(tmp_path):
     interpolate to model time, precip holds over the interval, and the
     background prefetch warms the cache."""
     import time
-    from noahmp_tpu.driver import netcdf
+    from noahmp_jax.driver import netcdf
 
     indir = tmp_path / "ldasin"
     indir.mkdir()
@@ -278,7 +278,7 @@ def test_chunk_dispatch_matches_per_step(tmp_path):
     """The chunked lax.scan dispatch (one device call per output
     window, on-device flux accumulation) must reproduce the per-step
     loop: same final state, same output means."""
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.driver.run import run_offline
 
     def cfg_for(tag):
         cfg = Config.from_namelist(CASE)
@@ -312,7 +312,7 @@ def test_chunk_dispatch_matches_per_step(tmp_path):
 def test_chunk_dispatch_respects_chunk_cap(tmp_path):
     """A chunk cap smaller than the output window still lands output
     exactly on window boundaries with correct means."""
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.driver.run import run_offline
 
     cfg = Config.from_namelist(CASE)
     cfg.enddatetime = cfg.begdatetime + datetime.timedelta(hours=2)
@@ -331,7 +331,7 @@ def test_chunk_dispatch_respects_chunk_cap(tmp_path):
 
 
 def test_cadence_next_due():
-    from noahmp_tpu.driver.config import Cadence
+    from noahmp_jax.driver.config import Cadence
     c3h = Cadence(seconds=3 * 3600.0)
     t = datetime.datetime(2000, 2, 28, 22, 15)
     assert c3h.next_due(t) == datetime.datetime(2000, 2, 29, 0, 0)
@@ -376,7 +376,7 @@ def test_validate_static_rejects_bad_indices(tmp_path):
 
 
 def test_load_restart_rejects_corrupt_state(tmp_path):
-    from noahmp_tpu.driver.io import save_restart, load_restart
+    from noahmp_jax.driver.io import save_restart, load_restart
     st = init_state(4)
     when = datetime.datetime(2000, 1, 5)
     p = str(tmp_path / "restart.npz")
@@ -407,7 +407,7 @@ def test_cli_end_to_end_generated_case(tmp_path):
     make_case.conus(n, seed=1, days=1, outdir=outdir, fmt="nc")
     nml = os.path.join(outdir, "case.nml")
 
-    from noahmp_tpu.driver import cli
+    from noahmp_jax.driver import cli
     cli.main([nml, "--check-budgets", "16", "--no-compile-cache"])
 
     outs = sorted(os.listdir(os.path.join(outdir, "ldasout")))
@@ -428,7 +428,7 @@ def test_chunk_pow2_decomposition_matches_per_step(tmp_path):
     power-of-two chunks (4+2+1) so jit compiles at most log2(cap)
     distinct scan lengths — results must still match the per-step loop
     and hit every cadence boundary exactly."""
-    from noahmp_tpu.driver.run import run_offline
+    from noahmp_jax.driver.run import run_offline
 
     def cfg_for(tag):
         cfg = Config.from_namelist(CASE)
@@ -467,9 +467,9 @@ def test_strict_budget_abort(tmp_path, monkeypatch):
     A violation is injected through the physics (forcing sfctmp > 400 K
     marks the step) so the device-side check sees a genuine bad flux.
     """
-    from noahmp_tpu.driver import step as step_mod
-    from noahmp_tpu.driver.run import run_offline
-    from noahmp_tpu.utils import ConservationError
+    from noahmp_jax.driver import step as step_mod
+    from noahmp_jax.driver.run import run_offline
+    from noahmp_jax.utils import ConservationError
 
     real_column_step = step_mod.column_step
 

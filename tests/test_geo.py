@@ -5,7 +5,7 @@ masking, field mapping, and grid scatter/gather round trips."""
 import numpy as np
 import pytest
 
-from noahmp_tpu.driver import geo, io, netcdf
+from noahmp_jax.driver import geo, io, netcdf
 
 
 @pytest.fixture()

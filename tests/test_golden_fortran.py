@@ -80,10 +80,10 @@ def test_fortran_vs_jax_trajectory(name, config, opts_kw, tmp_path):
     sys.path.insert(0, VALIDATE)
     from golden_case import diurnal_forcing
 
-    from noahmp_tpu.params import load_params
-    from noahmp_tpu.options import Options
-    from noahmp_tpu.state import init_state, init_static, Forcing
-    from noahmp_tpu.driver.step import make_step
+    from noahmp_jax.params import load_params
+    from noahmp_jax.options import Options
+    from noahmp_jax.state import init_state, init_static, Forcing
+    from noahmp_jax.driver.step import make_step
 
     nsteps = 96
     rows = diurnal_forcing(nsteps=nsteps)

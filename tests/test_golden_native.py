@@ -10,11 +10,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from noahmp_tpu.params import load_params
-from noahmp_tpu.options import Options
-from noahmp_tpu.state import init_state, init_static, Forcing, State
-from noahmp_tpu.driver.step import make_step
-from noahmp_tpu import native
+from noahmp_jax.params import load_params
+from noahmp_jax.options import Options
+from noahmp_jax.state import init_state, init_static, Forcing, State
+from noahmp_jax.driver.step import make_step
+from noahmp_jax import native
+from noahmp_jax.native.oracle import resync_fuzz
 
 
 @pytest.fixture(scope="module")
@@ -264,38 +265,9 @@ FUZZ_COMBOS = [
     ("rad3_frz2_snf3", Options(rad=3, frz=2, snf=3)),
 ]
 
-# tight bounds = calibrated max x ~10 margin on the smooth population;
-# caps = isolated knife-edge outliers x ~2
-FUZZ_TIGHT = dict(tg=0.1, tv=0.3, swc=1e-4, sneqv=0.05, canliq=0.02)
-FUZZ_CAP = dict(tg=4.0, tv=2.5, swc=1e-3, sneqv=0.5, canliq=0.25)
-FUZZ_OUTLIER_FRAC = 0.005
-
-
-def _fuzz_forcing(rng, n):
-    day = rng.random(n) < 0.5
-    rep = lambda v: np.full(n, v, np.float32)  # noqa: E731
-    return Forcing(
-        sfctmp=rng.uniform(250.0, 305.0, n).astype(np.float32),
-        sfcprs=rep(90000.0), psfc=rep(90000.0),
-        uu=rng.uniform(0.5, 12.0, n).astype(np.float32), vv=rep(1.0),
-        q2=rng.uniform(0.001, 0.012, n).astype(np.float32),
-        soldn=np.where(day, rng.uniform(100.0, 900.0, n),
-                       0.0).astype(np.float32),
-        lwdn=rng.uniform(200.0, 400.0, n).astype(np.float32),
-        prcp=rng.choice([0.0, 0.0002, 0.001, 0.004],
-                        n).astype(np.float32),
-        cosz=np.where(day, rng.uniform(0.1, 0.95, n),
-                      -0.2).astype(np.float32),
-        co2air=rep(39.0), o2air=rep(18900.0), foln=rep(1.0),
-        julian=rep(180.0), yearlen=rep(366.0))
-
-
 @pytest.mark.parametrize("name,opts", FUZZ_COMBOS,
                          ids=[c[0] for c in FUZZ_COMBOS])
 def test_resync_fuzz(params, params_host, name, opts, runslow):
-    import jax
-    from noahmp_tpu import native as native_mod
-
     n = len(FUZZ_LUTYP)
     # default: 75-step subsample per combo keeps the suite usable
     # (~15 s/combo); CI --runslow runs the full calibrated 500 steps
@@ -336,33 +308,5 @@ def test_resync_fuzz(params, params_host, name, opts, runslow):
         tg=percol("tg", GLACIER_COL, 266.0),
         tv=percol("tv", GLACIER_COL, 266.0))
     step = make_step(params, opts, 900.0, donate=False)
-
-    outliers = 0
-    total = 0
-    for t in range(nsteps):
-        f = _fuzz_forcing(rng, n)
-        prev = jax.device_get(st_j)
-        st_j, _ = step(static, f, st_j)
-        jarr = {k: np.asarray(getattr(st_j, k))
-                for k in ("tg", "tv", "swc", "sneqv", "canliq",
-                          "nsnow")}
-        for i in range(n):
-            sn, _fl = native_mod.step_column(params_host, opts, static,
-                                             f, prev, i, 900.0)
-            assert int(jarr["nsnow"][i]) == int(sn["nsnow"]), \
-                f"{name}: layer count diverged step {t} col {i}"
-            is_out = False
-            for fld, tol in FUZZ_TIGHT.items():
-                d = float(np.max(np.abs(
-                    np.asarray(jarr[fld][i], np.float64)
-                    - np.asarray(sn[fld], np.float64))))
-                assert d <= FUZZ_CAP[fld], (
-                    f"{name}: {fld} diff {d:.3g} beyond hard cap at "
-                    f"step {t} col {i} (lutyp {FUZZ_LUTYP[i]})")
-                if d > tol:
-                    is_out = True
-            outliers += is_out
-            total += 1
-    assert outliers <= FUZZ_OUTLIER_FRAC * total, (
-        f"{name}: {outliers}/{total} column-steps beyond tight bounds "
-        f"(allowed {FUZZ_OUTLIER_FRAC:.1%})")
+    resync_fuzz(step, params_host, opts, static, st_j, rng, nsteps,
+                label=name)

@@ -6,10 +6,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from noahmp_tpu.params import load_params
-from noahmp_tpu.options import Options
-from noahmp_tpu.state import init_state, init_static, Forcing
-from noahmp_tpu.driver.step import simulate
+from noahmp_jax.params import load_params
+from noahmp_jax.options import Options
+from noahmp_jax.state import init_state, init_static, Forcing
+from noahmp_jax.driver.step import simulate
 
 
 def test_seasonal_scan_stability():

@@ -1,8 +1,7 @@
 """Real multi-process jax.distributed SPMD on CPU (VERDICT r4 #4).
 
-The heavyweight orchestration lives in scripts/mp_spmd_cpu.py (it is
-also run standalone to produce MULTIPROC_r05.json); this wrapper keeps
-it in CI via --runslow.  It spawns 2 OS processes x 4 virtual CPU
+The heavyweight orchestration lives in scripts/mp_spmd_cpu.py (it also
+runs standalone); this wrapper keeps it in CI via --runslow.  It spawns 2 OS processes x 4 virtual CPU
 devices with a localhost coordinator, so jax.process_index()>0 code
 (process_slice, shard-file output, cooperative orbax writes) actually
 executes, then checks the merged output is bitwise equal to a

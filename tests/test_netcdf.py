@@ -8,7 +8,7 @@ import datetime
 import numpy as np
 import pytest
 
-from noahmp_tpu.driver import netcdf
+from noahmp_jax.driver import netcdf
 
 
 def test_classic_roundtrip_self(tmp_path):
@@ -42,12 +42,12 @@ def test_classic_read_by_scipy(tmp_path):
     netcdf.write_classic(p, {"x": a, "k": np.array([7], np.int32)},
                          dims={"lat": 4, "lon": 5},
                          var_dims={"x": ("lat", "lon")},
-                         attrs={"src": "noahmp_tpu"})
+                         attrs={"src": "noahmp_jax"})
     with scipy_io.netcdf_file(p, "r", mmap=False) as f:
         np.testing.assert_array_equal(f.variables["x"][:], a)
         assert f.dimensions["lat"] == 4
         assert f.variables["x"].dimensions == ("lat", "lon")
-        assert f.src == b"noahmp_tpu"
+        assert f.src == b"noahmp_jax"
         np.testing.assert_array_equal(f.variables["k"][:], [7])
 
 
@@ -115,8 +115,8 @@ def test_hdf5_read(tmp_path):
 
 
 def test_driver_nc_restart_roundtrip(tmp_path):
-    from noahmp_tpu.driver import io
-    from noahmp_tpu.state import init_state
+    from noahmp_jax.driver import io
+    from noahmp_jax.state import init_state
 
     state = init_state(5)
     when = datetime.datetime(2000, 1, 31, 12, 0)
@@ -133,9 +133,9 @@ def test_driver_nc_restart_roundtrip(tmp_path):
 
 def test_output_writer_nc(tmp_path):
     scipy_io = pytest.importorskip("scipy.io")
-    from noahmp_tpu.driver import io
-    from noahmp_tpu.state import init_state
-    from noahmp_tpu.physics.sflx import Flux
+    from noahmp_jax.driver import io
+    from noahmp_jax.state import init_state
+    from noahmp_jax.physics.sflx import Flux
 
     n = 4
     state = init_state(n)
@@ -186,7 +186,7 @@ def test_hdf5_write_roundtrip(tmp_path):
 
 def test_hdf5_write_compressed_autodims(tmp_path):
     pytest.importorskip("h5py")
-    from noahmp_tpu.driver import io
+    from noahmp_jax.driver import io
     p = str(tmp_path / "big.nc4")
     arrays = {"smc": np.random.default_rng(0).random(
         (2048, 4)).astype(np.float32)}
@@ -199,9 +199,9 @@ def test_hdf5_write_compressed_autodims(tmp_path):
 
 def test_output_writer_nc4(tmp_path):
     pytest.importorskip("h5py")
-    from noahmp_tpu.driver import io
-    from noahmp_tpu.state import init_state
-    from noahmp_tpu.physics.sflx import Flux
+    from noahmp_jax.driver import io
+    from noahmp_jax.state import init_state
+    from noahmp_jax.physics.sflx import Flux
 
     n = 4
     state = init_state(n)
@@ -263,8 +263,8 @@ def test_file_forcing_points_slice(tmp_path):
     """FileForcing with points_slice reads only its shard of the
     global forcing file."""
     import datetime as dtmod
-    from noahmp_tpu.driver import io
-    from noahmp_tpu.state import init_static
+    from noahmp_jax.driver import io
+    from noahmp_jax.state import init_static
 
     n_global, lo, hi = 64, 16, 32
     indir = tmp_path / "ldasin"

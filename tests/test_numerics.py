@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from noahmp_tpu.numerics.tridiag import thomas, masked_identity_rows
+from noahmp_jax.numerics.tridiag import thomas, masked_identity_rows
 
 
 def _dense_solve(a, b, c, d):
@@ -77,7 +77,7 @@ def test_thomas_variable_top_identity_rows():
 def test_esat_reference_values():
     """esat polynomial sanity: ~611 Pa at 0C, ~2.3 kPa at 20C over
     water; ice below water at subzero."""
-    from noahmp_tpu.physics.sfc import esat
+    from noahmp_jax.physics.sfc import esat
     esw0, esi0, _, _ = esat(jnp.float32(0.0))
     assert abs(float(esw0) - 610.8) < 1.0
     assert abs(float(esi0) - 610.9) < 1.0
@@ -96,9 +96,9 @@ def test_frh2o_against_scipy():
     """Supercooled water content: Koren99 eq.17 fixed point vs scipy
     root-finding on the same equation."""
     from scipy.optimize import brentq
-    from noahmp_tpu.physics.soiltemp import frh2o
-    from noahmp_tpu.params import load_params
-    from noahmp_tpu.constants import HFUS, GRAV, TFRZ
+    from noahmp_jax.physics.soiltemp import frh2o
+    from noahmp_jax.params import load_params
+    from noahmp_jax.constants import HFUS, GRAV, TFRZ
 
     params = load_params()
     soil = params.soil
@@ -133,7 +133,7 @@ def test_snode_f32_precision():
     #8).  Sweep the full STAS/STAS-RUC table range; the f32 error must
     stay orders of magnitude below the 10/dt qin clip that bounds the
     term's effect on the water budget."""
-    from noahmp_tpu.params import load_params
+    from noahmp_jax.params import load_params
 
     p = load_params("USGS", "STAS", to_device=False)
     bexp_max = float(np.nanmax(p.soil.bexp))
@@ -178,32 +178,13 @@ def test_snode_dfloat_bitexact():
     the reference's f64-computed, f32-rounded value (func:6560-6563)
     on a full-range sweep, with no x64 gating (VERDICT r3 missing #4)."""
     import jax.numpy as jnp
-    from noahmp_tpu.numerics import dfloat as D
+    from noahmp_jax.numerics import dfloat as D
+    from noahmp_jax.native.oracle import snode_sweep, ulp_distance
 
-    rng = np.random.default_rng(1)
-    N = 200_000
-    smc = rng.uniform(0.002, 0.55, N)
-    smcmax = rng.uniform(0.30, 0.50, N)
-    psisat = rng.uniform(0.01, 0.76, N).astype(np.float32)
-    bexp = rng.uniform(2.0, 12.0, N).astype(np.float32)
-
-    # s_node exactly as physics/soilwater.py:groundwater computes it
-    ratio32 = smc.astype(np.float32) / smcmax.astype(np.float32)
-    s32 = np.clip(np.minimum(ratio32, np.float32(1.0)),
-                  np.float32(0.01), None)
-    at_clip = ratio32 <= np.float32(0.01)
-
+    s32, bexp, psisat, at_clip, ref = snode_sweep()
     out = np.asarray(D.smpfz_f64_parity(
         jnp.asarray(s32), jnp.asarray(bexp), jnp.asarray(psisat),
         jnp.asarray(at_clip)))
-
-    # reference semantics: f32 ratio widened to f64, clamp vs 0.01_8,
-    # f64 pow/product, single rounding into the real*4 SMPFZ
-    s64 = np.maximum(np.minimum(1.0, ratio32.astype(np.float64)), 0.01)
-    ref = (-psisat.astype(np.float64) * 1000.0
-           * s64 ** (-bexp.astype(np.float64))).astype(np.float32)
-
-    ulp = (np.abs(out.astype(np.float64) - ref.astype(np.float64))
-           / np.spacing(np.abs(ref)).astype(np.float64))
+    ulp = ulp_distance(out, ref)
     assert (out == ref).mean() > 0.999
     assert ulp.max() <= 1.0

@@ -1,7 +1,7 @@
 """Parameter-table loading tests.
 
 Values asserted here are read directly from the data tables
-(noahmp_tpu/params/data/*.TBL) mirroring what the reference readers
+(noahmp_jax/params/data/*.TBL) mirroring what the reference readers
 produce (core/module_noahmp_veg_param.f90:77-161,
 core/module_noahmp_soil_param.f90:31-72, core/module_noahmp_gen_param.f90:51-89).
 """
@@ -9,7 +9,7 @@ core/module_noahmp_soil_param.f90:31-72, core/module_noahmp_gen_param.f90:51-89)
 import numpy as np
 import pytest
 
-from noahmp_tpu.params import load_params, VEG_SCHEMES, SOIL_SCHEMES
+from noahmp_jax.params import load_params, VEG_SCHEMES, SOIL_SCHEMES
 
 
 @pytest.fixture(scope="module")

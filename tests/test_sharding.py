@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from noahmp_tpu.params import load_params
-from noahmp_tpu.options import Options
-from noahmp_tpu.state import init_state, init_static, Forcing
-from noahmp_tpu.driver.step import make_step
-from noahmp_tpu.dist.mesh import (make_mesh, make_sharded_step,
+from noahmp_jax.params import load_params
+from noahmp_jax.options import Options
+from noahmp_jax.state import init_state, init_static, Forcing
+from noahmp_jax.driver.step import make_step
+from noahmp_jax.dist.mesh import (make_mesh, make_sharded_step,
                                   shard_batch)
 
 
@@ -78,7 +78,7 @@ def test_sharded_matches_single_device(setup):
 
 
 def test_sharded_checkpoint_roundtrip(tmp_path, setup):
-    from noahmp_tpu.dist.checkpoint import CheckpointManager
+    from noahmp_jax.dist.checkpoint import CheckpointManager
     _params, _static, _forcing, state = setup
     mesh = make_mesh()
     st = shard_batch(state, mesh)
@@ -95,7 +95,7 @@ def test_sharded_checkpoint_roundtrip(tmp_path, setup):
 def test_batch_minor_layout_matches_major(setup):
     """The batch-minor layout (points on the 128-lane axis, PERF.md
     lever 2) is bit-identical to the default batch-major layout."""
-    from noahmp_tpu.driver.step import batch_to_layout
+    from noahmp_jax.driver.step import batch_to_layout
 
     params, static, forcing, state = setup
     opts = Options()
@@ -126,9 +126,9 @@ def test_sharded_output_write_and_merge(tmp_path):
     byte-stable across re-merges."""
     import datetime
     import os
-    from noahmp_tpu.driver import io as io_mod
-    from noahmp_tpu.driver.io import OutputWriter, merge_shard_files
-    from noahmp_tpu.dist.mesh import make_mesh, shard_batch
+    from noahmp_jax.driver import io as io_mod
+    from noahmp_jax.driver.io import OutputWriter, merge_shard_files
+    from noahmp_jax.dist.mesh import make_mesh, shard_batch
 
     n = 64
     mesh = make_mesh(jax.devices()[:8])

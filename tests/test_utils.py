@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from noahmp_tpu import utils
-from noahmp_tpu.state import init_state
+from noahmp_jax import utils
+from noahmp_jax.state import init_state
 
 
 def test_check_budgets_pass_and_fail():

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Build the reference Fortran core + golden driver (SURVEY.md section 7
-# step 2).  Requires gfortran; this repo's CI/TPU image has none, so
+# step 2).  Requires gfortran; this repo's test image has none, so
 # the harness ships dormant and tests/test_golden_fortran.py skips when
 # the binary is absent.
 #

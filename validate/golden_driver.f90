@@ -1,6 +1,6 @@
 ! Golden-trajectory driver for the reference NoahMP core
 ! (/root/reference/core/module_noahmp_func.f90).  Compiled by
-! build_fortran.sh wherever gfortran exists; the TPU image has no
+! build_fortran.sh wherever gfortran exists; the test image has no
 ! Fortran compiler, so this ships as a dormant, runnable oracle
 ! (SURVEY.md section 7 step 2; VERDICT round 1 missing #1).
 !
@@ -16,7 +16,7 @@
 !   foln,julian,yearlen
 !
 ! Output: header line, then one CSV row per step with the prognostic
-! state after the step (layout mirrors noahmp_tpu.state.State: snow
+! state after the step (layout mirrors noahmp_jax.state.State: snow
 ! slots 1..3 = Fortran -2..0, soil 1..4) and the main fluxes.  This is
 ! byte-compatible with tests/test_golden_fortran.py's expectations.
 
@@ -72,7 +72,7 @@ program golden_driver
   real :: fpice
 
   ! constants for this offline configuration (match the C++ oracle and
-  ! noahmp_tpu defaults; dz8w/dx/qc/pblh/iz0tlnd are dormant jref args)
+  ! noahmp_jax defaults; dz8w/dx/qc/pblh/iz0tlnd are dormant jref args)
   real, parameter :: dx = 1000.0, dz8w = 20.0, qc = 0.0, pblh = 1000.0
   integer, parameter :: iz0tlnd = 0
 
@@ -83,7 +83,7 @@ program golden_driver
   call get_command_argument(1, cfgfile)
   call get_command_argument(2, forfile)
 
-  ! defaults mirror noahmp_tpu.state.init_state / init_static
+  ! defaults mirror noahmp_jax.state.init_state / init_static
   nsteps = 96; dt = 900.0
   veg_tag = 'USGS'; soil_tag = 'STAS'
   o_veg = 1; o_crs = 1; o_btr = 1; o_run = 1; o_sfc = 1; o_frz = 1
@@ -157,7 +157,7 @@ program golden_driver
   call noahmp_soil_param_readptable(soil_tag)
   call noahmp_gen_param_readptable()
 
-  ! cold-start state (mirrors noahmp_tpu.state.init_state)
+  ! cold-start state (mirrors noahmp_jax.state.init_state)
   canliq = canliq0; canice = canice0; tv = tv0; eah = 1000.0
   tah = tv0; fwet = 0.0; lai = lai0; sai = sai0
   tg = tg0; qsfc = 0.01; cm = 0.01; ch = 0.01
